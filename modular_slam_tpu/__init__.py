@@ -1,4 +1,4 @@
-"""modular_slam_tpu — a TPU-native modular RGB-D SLAM engine in JAX.
+"""modular_slam_tpu — a modular RGB-D SLAM engine in JAX for the GPU.
 
 A from-scratch rebuild of the capabilities of marcin-ochman/modular-slam
 (C++17, reference at /root/reference) as an idiomatic JAX/XLA/Pallas design:

@@ -2,9 +2,9 @@
 
 The reference left its backend synchronous with a "TODO: run as
 std::async" (/root/reference/src/lib/modular_slam/include/modular_slam/
-slam.hpp:94).  Round-2's claim of overlap-via-async-dispatch was
-structurally impossible: on a single TPU chip all dispatches execute
-serially, and local BA donated/returned the arena the next chunk's scan
+slam.hpp:94).  Overlap via async dispatch alone cannot hide the
+solve: one device executes its dispatches in order, and local BA
+donated/returned the arena the next chunk's scan
 consumed, so the ~tens-of-ms solve sat on the tracking critical path
 (VERDICT r2 weak #2).
 
@@ -14,8 +14,8 @@ tracking device:
 
   1. extract_window   — on the tracking device (cheap gather/compaction);
   2. solve_window     — on an OFFLOAD device (host CPU by default: a
-                        compute resource that is idle while the TPU
-                        tracks), dispatched from a worker thread so the
+                        compute resource that is idle while the
+                        accelerator tracks), dispatched from a worker thread so the
                         solve runs concurrently with the next chunk's
                         tracking dispatches (XLA releases the GIL);
   3. merge_window     — on the tracking device at the next harvest

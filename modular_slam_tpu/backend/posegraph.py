@@ -9,7 +9,7 @@ r_e = log(Z_ij^-1 * T_i^-1 * T_j) in se(3), minimized by damped GN with
 per-node right-multiplicative retractions T <- T * exp(xi).  Jacobians
 come from jax.jacfwd of the per-edge residual (exact, vmapped), the
 normal equations are assembled by scatter-add into a dense [6K, 6K]
-system (K <= 256 keyframes -> a trivial Cholesky on the MXU), gauge fixed
+system (K <= 256 keyframes -> a trivial Cholesky), gauge fixed
 at node 0.  Fixed-capacity edge arrays with validity masks keep
 everything static-shape.
 """
@@ -111,9 +111,8 @@ def optimize_pose_graph(
     The GN normal system is applied MATRIX-FREE: each H·x is two edge
     gathers + per-edge 6x6 einsums + two segment-sums back to nodes,
     solved by block-Jacobi PCG — the earlier dense formulation built a
-    [6K, 6K] Hessian with zipped 2-D block scatter-adds (the
-    pathological TPU scatter path) and ran a dense solve per GN
-    iteration, ~80 ms at K=256."""
+    [6K, 6K] Hessian with zipped 2-D block scatter-adds and ran a
+    dense solve per GN iteration."""
     from jax.ops import segment_sum
 
     from modular_slam_tpu.backend.cg import pcg

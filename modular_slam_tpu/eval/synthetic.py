@@ -30,13 +30,19 @@ def _texture(size: int, seed: int) -> np.ndarray:
     for y, x in zip(ys, xs):
         s = int(rng.integers(3, 10))
         tex[y:y + s, x:x + s] = float(rng.uniform(0, 255))
-    try:
-        import cv2
+    return _gaussian_blur3(tex, 0.8)
 
-        tex = cv2.GaussianBlur(tex, (3, 3), 0.8)
-    except Exception:
-        pass
-    return tex
+
+def _gaussian_blur3(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable 3-tap Gaussian with OpenCV's default border
+    (reflect-101, scipy's "mirror") — cv2.GaussianBlur(img, (3, 3), sigma)
+    without needing OpenCV."""
+    from scipy import ndimage
+
+    k = np.exp(-np.arange(-1.0, 2.0) ** 2 / (2.0 * sigma * sigma))
+    k = (k / k.sum()).astype(np.float32)
+    out = ndimage.correlate1d(img, k, axis=0, mode="mirror")
+    return ndimage.correlate1d(out, k, axis=1, mode="mirror")
 
 
 class _SceneBase:
@@ -212,22 +218,21 @@ class DegradedScene(_SceneBase):
 
         # motion blur along a per-frame direction
         if self.blur_len > 1:
-            try:
-                import cv2
+            from scipy import ndimage
 
-                L = self.blur_len
-                kern = np.zeros((L, L), np.float32)
-                ang = float(rng.uniform(0, np.pi))
-                c, s_ = np.cos(ang), np.sin(ang)
-                for i in range(L):
-                    u = (i - (L - 1) / 2)
-                    yy = int(round((L - 1) / 2 + u * s_))
-                    xx = int(round((L - 1) / 2 + u * c))
-                    kern[yy, xx] = 1.0
-                kern /= kern.sum()
-                gray = cv2.filter2D(gray, -1, kern)
-            except Exception:
-                pass
+            L = self.blur_len
+            kern = np.zeros((L, L), np.float32)
+            ang = float(rng.uniform(0, np.pi))
+            c, s_ = np.cos(ang), np.sin(ang)
+            for i in range(L):
+                u = (i - (L - 1) / 2)
+                yy = int(round((L - 1) / 2 + u * s_))
+                xx = int(round((L - 1) / 2 + u * c))
+                kern[yy, xx] = 1.0
+            kern /= kern.sum()
+            # cv2.filter2D(gray, -1, kern): correlation, centred anchor,
+            # reflect-101 border
+            gray = ndimage.correlate(gray, kern, mode="mirror")
 
         # exposure jitter + photometric noise
         gain = float(np.exp(rng.normal(0.0, self.exposure_jitter)))

@@ -202,7 +202,8 @@ def _track(
         inlier_lm = jnp.zeros(arena.max_landmarks, bool).at[
             jnp.where(pnp.inliers, matches.lm_slot, arena.max_landmarks)
         ].set(True, mode="drop")
-        # f32 GEMV (int32 matmuls are not MXU-eligible); 0/1 sums are exact
+        # f32 GEMV (int32 matmuls have no matrix-unit path); 0/1 sums
+        # are exact
         votes = (arena.inc.astype(jnp.float32)
                  @ inlier_lm.astype(jnp.float32)).astype(jnp.int32)
         votes = jnp.where(hop5 & arena.kf_valid, votes, -1)

@@ -1,7 +1,8 @@
 """ctypes bindings to the native C++ data loader (native/png_loader.cpp).
 
 Builds the shared library on first use if the toolchain is available;
-falls back silently (io/tum.py then uses OpenCV/PIL).  Public surface:
+falls back silently (io/tum.py then uses OpenCV or the bundled
+numpy+zlib decoder).  Public surface:
 
 - decode_png(path) -> np.ndarray | None  (uint8 [H,W,3] or uint16 [H,W])
 - PrefetchLoader: multi-threaded decode-ahead over an (rgb, depth) path
@@ -24,6 +25,7 @@ _NATIVE_DIR = os.path.join(
 _SO_PATH = os.path.join(_NATIVE_DIR, "libmslam_native.so")
 
 _lib: Optional[ctypes.CDLL] = None
+_unavailable = False   # build or load failed once: don't retry per call
 
 
 def _build() -> bool:
@@ -38,12 +40,16 @@ def _build() -> bool:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib
-    if _lib is not None:
+    global _lib, _unavailable
+    if _lib is not None or _unavailable:
         return _lib
-    if not os.path.exists(_SO_PATH) and not _build():
+    try:
+        if not os.path.exists(_SO_PATH) and not _build():
+            raise OSError(f"cannot build {_SO_PATH}")
+        lib = ctypes.CDLL(_SO_PATH)
+    except OSError:
+        _unavailable = True
         return None
-    lib = ctypes.CDLL(_SO_PATH)
     lib.msl_png_info.restype = ctypes.c_int
     lib.msl_png_info.argtypes = [ctypes.c_char_p] + [
         ctypes.POINTER(ctypes.c_int)] * 4

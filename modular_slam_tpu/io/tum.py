@@ -12,8 +12,10 @@ Replaces the reference's RgbdFileProvider
   :136-145); rgb PNGs are 8-bit color.
 
 Decoding prefers the native C++ loader (modular_slam_tpu.io.native) when
-built, else OpenCV, else PIL.  The host loader produces numpy arrays; the
-device transfer + grayscale conversion happens in `frame_to_device`.
+built, else OpenCV, else the bundled numpy+zlib decoder (viz/png.py,
+8-bit RGB and 16-bit gray: what TUM and eval/make_dataset write).  The
+host loader produces numpy arrays; the device transfer + grayscale
+conversion happens in `frame_to_device`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 from modular_slam_tpu.types import LUMA_WEIGHTS  # noqa: E402
 from modular_slam_tpu.config import CameraConfig
 from modular_slam_tpu.io.associate import associate
+from modular_slam_tpu.viz.png import read_png
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tiff")
 
@@ -52,9 +55,8 @@ def load_rgb(path: str) -> np.ndarray:
         if bgr is None:
             raise FileNotFoundError(path)
         return bgr[..., ::-1].copy()
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGB"))
+    img = read_png(path)
+    return img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=-1)
 
 
 def load_depth_raw(path: str) -> np.ndarray:
@@ -68,9 +70,7 @@ def load_depth_raw(path: str) -> np.ndarray:
         if raw is None:
             raise FileNotFoundError(path)
         return raw.astype(np.uint16)
-    from PIL import Image
-
-    return np.asarray(Image.open(path)).astype(np.uint16)
+    return read_png(path).astype(np.uint16)
 
 
 def load_depth(path: str, depth_factor: float) -> np.ndarray:
@@ -84,10 +84,7 @@ def load_depth(path: str, depth_factor: float) -> np.ndarray:
         if raw is None:
             raise FileNotFoundError(path)
         return raw.astype(np.float32) * depth_factor
-    from PIL import Image
-
-    raw = np.asarray(Image.open(path))
-    return raw.astype(np.float32) * depth_factor
+    return read_png(path).astype(np.float32) * depth_factor
 
 
 @dataclass
@@ -193,8 +190,7 @@ class TumRgbdDataset:
                   native_ok: bool = True):
         """Iterate frames in the minimum-byte WIRE format:
         (gray uint8 [H,W], depth uint16 [H,W] raw, timestamp) — for
-        `SlamSystem.process_chunk_wire`.  Remote-device deployments are
-        bounded by host->device link bytes; uint8 luma + raw uint16
+        `SlamSystem.process_chunk_wire`.  uint8 luma + raw uint16
         depth is 2.3x smaller than rgb + f32 meters, and 8-bit luma is
         the reference's grayscale semantics (frame.cpp toGrayScale).
         Uses the native decode-ahead loader when available."""

@@ -4,9 +4,9 @@ Replaces DBoW3 (the reference's OrbRelocalizer loads an external
 `orbvoc.dbow3` vocabulary file that is not even shipped,
 orb_relocalizer.cpp:28, and stubs every method :32-55).
 
-TPU-native design: the vocabulary is a fixed ±1 projection codebook
-[V, 256]; a descriptor's word is the argmax similarity (one int8 matmul
-on the MXU), a frame's BoW vector is the L2-normalized word histogram,
+Accelerator design: the vocabulary is a fixed ±1 projection codebook
+[V, 256]; a descriptor's word is the argmax similarity (one int8
+matmul), a frame's BoW vector is the L2-normalized word histogram,
 and database scoring is hist @ database.T — batched matmul + top-k, no
 trees, no pointer chasing.  The codebook is deterministic (seeded) so
 every run shares the same vocabulary without external files.
@@ -43,7 +43,7 @@ def train_vocab(desc_pm1: np.ndarray, vocab_size: int = 1024,
 
     Binary descriptors live on the hypercube; cosine similarity against a
     ±1 centroid is an affine function of Hamming distance, so assigning
-    each descriptor to its max-dot-product word (the same MXU matmul the
+    each descriptor to its max-dot-product word (the same matmul the
     runtime scoring uses) clusters by Hamming distance — the role DBoW3's
     vocabulary tree plays for the reference (orb_relocalizer.cpp:28),
     without trees or external vocabulary files."""

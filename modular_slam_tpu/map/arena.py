@@ -7,9 +7,9 @@ Replaces the reference's pointer-graph BasicMap
 neighbour adjacency map updated per keyframe (basic_map.cpp:141-164), with
 BFS visitors (:209-237).
 
-TPU-native design (SURVEY.md §7): preallocated pools with validity masks +
+Accelerator design (SURVEY.md §7): preallocated pools with validity masks +
 a [K_max, L_max] boolean observation *incidence matrix*.  Covisibility
-counts are then one matmul (inc @ inc.T on the MXU), k-hop BFS becomes
+counts are then one matmul (inc @ inc.T), k-hop BFS becomes
 repeated masked boolean matvecs, and "landmarks visible from a keyframe
 set" is a single matvec — no pointers, no host sync, fully jittable.
 
@@ -175,9 +175,9 @@ def covis_counts(arena: MapArena) -> Array:
 
     Reference: neighbours map joined through shared landmarks
     (basic_map.cpp:141-164).  Here: one matmul over the incidence —
-    bf16 inputs with f32 accumulation so it runs on the MXU (an int32
-    matmul is not MXU-eligible and cost ~1.4 ms/frame at default
-    capacities); 0/1 products accumulate exactly in f32."""
+    bf16 inputs with f32 accumulation so it runs on the matrix units (an
+    int32 matmul has no matrix-unit path); 0/1 products accumulate
+    exactly in f32."""
     m = arena.inc.astype(jnp.bfloat16)
     return jnp.matmul(m, m.T,
                       preferred_element_type=jnp.float32).astype(jnp.int32)
@@ -191,7 +191,7 @@ def khop_keyframes(arena: MapArena, kf_slot: Array, depth: int) -> Array:
     MATRIX-FREE: one hop is "landmarks seen by the visited set, then
     keyframes seeing those landmarks" — two [K,L] GEMVs (~8 MFLOP at
     default capacity) instead of materializing the full inc @ inc.T
-    adjacency (~2.1 GFLOP; it cost 0.4 ms of every tracked frame).
+    adjacency (~2.1 GFLOP per tracked frame).
     Positive sums accumulate in f32, so the > 0 tests are exact."""
     K = arena.max_keyframes
     inc_f = arena.inc.astype(jnp.bfloat16)
@@ -210,8 +210,8 @@ def khop_keyframes(arena: MapArena, kf_slot: Array, depth: int) -> Array:
 def visible_landmarks(arena: MapArena, kf_mask: Array) -> Array:
     """[L] bool — landmarks observed by any keyframe in kf_mask.
 
-    Boolean any-reduction over the incidence rows (VPU elementwise +
-    sublane reduce) — an integer GEMV here would leave the MXU."""
+    Boolean any-reduction over the incidence rows (elementwise + reduce)
+    instead of an integer GEMV."""
     hits = jnp.any(arena.inc & kf_mask[:, None], axis=0)
     return hits & arena.lm_valid
 

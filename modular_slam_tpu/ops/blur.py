@@ -51,9 +51,9 @@ def blur_patches(patches: Array, ksize: int = 7,
 def gaussian_blur(img: Array, ksize: int = 7, sigma: float = 2.0) -> Array:
     """[H, W] float32 -> blurred [H, W]; reflect-101 borders like OpenCV.
 
-    Separable filter written as shifted multiply-adds (fused on the VPU)
-    rather than lax.conv — single-channel convs waste the MXU and measured
-    ~0.5 ms/level on a v5e; this form is bandwidth-bound and fuses.
+    Separable filter written as shifted multiply-adds rather than
+    lax.conv (a single-channel conv leaves the matrix units idle); this
+    form is bandwidth-bound and fuses.
     """
     k = gaussian_kernel_1d(ksize, sigma)
     r = ksize // 2

@@ -7,16 +7,15 @@ We use our own deterministic pattern (ops/brief_pattern.py).
 
 Two formulations:
 - `brief_from_atlas` — flat random gather of all 512 sample points per
-  keypoint from the padded pyramid atlas.  Measured 1.9 ms/frame on a
-  v5e: a 512x512-element random HBM gather is descriptor-rate-bound on
-  TPU (the gather unit issues ~1 element/cycle), not bandwidth-bound.
-- `brief_matmul` — the TPU-native path used by the detector: quantize
+  keypoint from the padded pyramid atlas: a 512x512-element random
+  gather.
+- `brief_matmul` — the path used by the detector: quantize
   the angle to 32 bins (the original ORB paper steers BRIEF with a
   2*pi/30 lookup table — rotation binning is the CANONICAL design, not
   an approximation of it), extract each keypoint's 37x37 patch with one
   contiguous ROW gather + a one-hot column matmul, then sample all 512
   rotated endpoints with a grouped (ragged) matmul against per-bin
-  one-hot selector matrices — all the random access becomes MXU work.
+  one-hot selector matrices — all the random access becomes matmul work.
 """
 
 from __future__ import annotations
@@ -131,7 +130,7 @@ def extract_patches_matmul(
 ) -> Array:
     """[N, patch^2] flattened patches, via ONE contiguous row gather
     (take along the row axis — DMA-efficient, unlike element gathers) +
-    a one-hot column-window matmul on the MXU.  Exact: the one-hot
+    a one-hot column-window matmul.  Exact: the one-hot
     contraction runs at Precision.HIGHEST, so every output is a
     bit-exact copy of the source pixel."""
     nlev, H, W = blur_atlas.shape
@@ -165,14 +164,14 @@ def brief_matmul(
     angles: Array,       # [N] float32 radians
     n_bins: int = N_ANGLE_BINS,
 ) -> Array:
-    """Descriptor bits [N, 256] uint8 via MXU sampling (see module
+    """Descriptor bits [N, 256] uint8 via matmul sampling (see module
     docstring).
 
     The patch is rounded to 8-bit intensities first — the reference
     BRIEF compares uint8 blurred pixels (cv::GaussianBlur on CV_8U,
     distributed_cv_feature.cpp:797-801), so integer comparisons ARE the
     reference semantics — then shifted to int8 (comparisons are
-    shift-invariant) so the one-hot sampling runs as ONE int8 MXU GEMM
+    shift-invariant) so the one-hot sampling runs as ONE int8 GEMM
     against all bins' selectors: exact (int8 x one-hot -> int32) and at
     double bf16 throughput.  The angle-binned result is picked with a
     one-hot reduction — no gathers anywhere.  Agrees bit-exactly with
@@ -188,7 +187,7 @@ def brief_matmul_from_patches(
     angles: Array,        # [N] float32 radians
     n_bins: int = N_ANGLE_BINS,
 ) -> Array:
-    """The angle-binned int8 MXU sampling stage of `brief_matmul`, fed
+    """The angle-binned int8 matmul sampling stage of `brief_matmul`, fed
     directly with pre-extracted blurred patches (the patch-centric
     detector path blurs per-keypoint patches instead of the dense
     pyramid — same quantize-then-compare semantics)."""

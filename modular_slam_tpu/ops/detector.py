@@ -7,23 +7,18 @@ Reference pipeline (distributed_cv_feature.cpp, OrbExtractorPimpl::extract
 leaf -> IC orientation -> per-level Gaussian blur -> rotated BRIEF-256
 -> scale correction to level-0 coords.
 
-TPU-native redesign (same goals, static shapes; SURVEY.md §7 step 3):
-- one FAST *score map* per level serves both thresholds (ops/fast.py);
+Static-shape redesign (same goals; SURVEY.md §7 step 3):
+- one FAST *score map* per level serves both thresholds (ops/fast.py,
+  ops/fast_pallas.py on the GPU);
 - the quadtree becomes a fixed grid: per `cell_size` cell keep the top
   `max_per_cell` NMS survivors — the quadtree's ~1-keypoint-per-1000px²
   uniform density with a static candidate count;
 - global response top-k selects `max_keypoints` BEFORE any descriptor
   work, so orientation/description cost scales with the keypoint budget,
   not the candidate count;
-- IC orientation comes from dense 2-channel moment-map convolutions (MXU)
-  gathered at keypoints — no per-keypoint patches;
-- BRIEF bits come from one flat gather over a padded blurred pyramid
-  atlas (ops/brief.py brief_from_atlas);
+- orientation, blur and BRIEF run in the patch domain: one raw patch per
+  selected keypoint is extracted from a padded pyramid atlas;
 - depth is sampled at level-0 coords from the depth map.
-
-(The first implementation gathered 31x31/37x37 patches per candidate via
-vmapped dynamic slices — 10.4 of the 12 ms detect time on a v5e.  This
-formulation replaces those with dense convs + two flat gathers.)
 """
 
 from __future__ import annotations
@@ -146,7 +141,7 @@ def _detect_impl(gray: Array, depth: Array, cfg: DetectorConfig, cut: str):
     # of products per frame to read 512 keypoints' worth (roofline note,
     # docs/architecture.md): instead extract ONE raw patch per keypoint
     # (BRIEF 37 + blur halo 2*3 = 43 wide) and compute orientation,
-    # blur, and descriptors in the patch domain — all small MXU/VPU ops.
+    # blur, and descriptors in the patch domain — all small dense ops.
     # Each level is reflect-padded by the blur radius first, so border
     # keypoints see the same reflect-101 halo the dense blur used.
     br = cfg.blur_ksize // 2
@@ -166,7 +161,7 @@ def _detect_impl(gray: Array, depth: Array, cfg: DetectorConfig, cut: str):
     if cut == "orient":
         return yx_sel, lvl_sel, sel_resp, angles
 
-    # --- blur in the patch domain + binned int8 MXU BRIEF sampling --------
+    # --- blur in the patch domain + binned int8 matmul BRIEF sampling -----
     bp = blur_patches(p2d, cfg.blur_ksize, cfg.blur_sigma)  # [N, 37, 37]
     bits = brief_matmul_from_patches(
         bp.reshape(bp.shape[0], -1), angles)

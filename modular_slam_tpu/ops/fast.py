@@ -10,9 +10,9 @@ reference's per-cell retry (threshold 20 falling back to 7) becomes
 "per-cell max of the score map, floored at 7", with high-threshold corners
 winning automatically.
 
-Pure jnp formulation (VPU-friendly; rolls + elementwise min/max fuse into
-a handful of XLA kernels — see docs/architecture.md for the measured
-XLA-vs-Pallas decision on this op):
+Pure jnp formulation — the plain reference and the CPU path; on the GPU
+ops/fast_pallas.py computes the same scores (docs/architecture.md, "The
+plain-vs-kernel record"):
   d[k]   = I(p + circle[k]) - I(p)                  (16 rolled images)
   m9[k]  = min(d[k], ..., d[k+8])  circular          (16 planes)
   bright = max_k m9[k]       # corner for all t < bright

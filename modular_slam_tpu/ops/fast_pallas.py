@@ -1,24 +1,15 @@
-"""Fused FAST-9/16 corner-score Pallas TPU kernel.
+"""FAST-9/16 corner score as a Pallas kernel for the GPU (Triton route).
 
-The XLA formulation (ops/fast.py) materializes the [16, H, W] ring-
-difference stack and two 8-deep roll/min ladders in HBM — hundreds of
-MB of traffic per frame across the 8-level pyramid, measured at ~3.7 ms
-of the 4.75 ms engine step (bench.py stage probes; 78 % of tracking).
-This kernel computes the whole score map with ONE HBM read of the image
-and one write of the scores: each grid step loads a row-tile (+3-row
-halo) from the VMEM-resident image, forms the 16 neighbor differences
-in VMEM, runs the circular min-9 / max-9 ladders in registers, and
-writes the tile's scores.
+One program per (row tile, column tile) of the score map.  It loads the
+centre tile and the 16 circle-offset tiles of the zero-padded image
+(the 3-pixel halo comes from overlapping loads, no shared-memory
+scratch), runs the circular min-9 / max-9 ladders in registers and
+writes the tile's scores once.  The plain formulation (ops/fast.py) is
+left to XLA's loop fusion.
 
-Semantics match ops/fast.py::fast_score exactly away from the 3-pixel
-y-border (the caller masks a >=19-pixel border anyway): score > t iff
-the pixel is a FAST-9 corner with strict threshold t.
-
-Batching: like ops/match_pallas.py, the kernel body uses program_id for
-its row-tile index, so jax.vmap must NOT reach the pallas batching rule
-(it would prepend a grid axis the body doesn't know about); the public
-entry is wrapped in jax.custom_batching.custom_vmap whose rule lax.maps
-the kernel over the batch.
+Semantics equal ops/fast.py::fast_score exactly away from the 3-pixel
+border, where the plain version wraps around and this one reads zeros;
+the detector masks a border of >= 19 pixels.
 """
 
 from __future__ import annotations
@@ -27,109 +18,70 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
+
+from modular_slam_tpu.ops.fast import FAST_CIRCLE, fast_score
 
 Array = jnp.ndarray
 
-try:  # pallas is TPU-only in some builds; import guarded
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-# Bresenham circle of radius 3, 16 pixels, circular order (dy, dx) —
-# identical to ops/fast.py FAST_CIRCLE
-from modular_slam_tpu.ops.fast import FAST_CIRCLE
-
-_HALO = 3          # max |dy| on the circle
-_TILE_H = 64       # output rows per grid step (multiple of 8)
+_HALO = 3            # circle radius
+_TILE_H = 16
+_TILE_W = 64
 
 
-def _fast_kernel(img_ref, out_ref, *, th: int, w: int):
-    """One row tile: img_ref is the FULL padded image resident in VMEM;
-    out_ref is this tile's [th, W] score block."""
-    g = pl.program_id(0)
-    base = g * th  # padded-image row of the tile's first halo row
-    win = img_ref[pl.ds(base, th + 2 * _HALO), :]       # [th+6, W]
-    center = win[_HALO:_HALO + th, :]                   # [th, W]
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    # 16 neighbor-difference planes, cached in VMEM (~16*th*W*4 bytes)
-    d = []
-    for dy, dx in FAST_CIRCLE:
-        rows = win[_HALO + dy:_HALO + dy + th, :]
-        if dx:
-            # pltpu.roll wants a non-negative shift; left-shift by dx ==
-            # right-shift by (w - dx) mod w
-            rows = pltpu.roll(rows, shift=(-dx) % w, axis=1)
-        d.append(rows - center)
 
-    neg_inf = jnp.full((th, w), -jnp.inf, jnp.float32)
-    bright = neg_inf
-    mn_of_mx = jnp.full((th, w), jnp.inf, jnp.float32)
+def _fast_kernel(img_ref, out_ref):
+    y0 = pl.program_id(0) * _TILE_H + _HALO
+    x0 = pl.program_id(1) * _TILE_W + _HALO
+
+    def at(dy, dx):
+        return img_ref[pl.ds(y0 + dy, _TILE_H), pl.ds(x0 + dx, _TILE_W)]
+
+    center = at(0, 0)
+    d = [at(dy, dx) - center for dy, dx in FAST_CIRCLE]
+    bright = jnp.full(center.shape, -jnp.inf, jnp.float32)
+    mn_of_mx = jnp.full(center.shape, jnp.inf, jnp.float32)
     for k in range(16):
         wmin = d[k]
         wmax = d[k]
         for j in range(1, 9):
-            dj = d[(k + j) % 16]
-            wmin = jnp.minimum(wmin, dj)
-            wmax = jnp.maximum(wmax, dj)
+            wmin = jnp.minimum(wmin, d[(k + j) % 16])
+            wmax = jnp.maximum(wmax, d[(k + j) % 16])
         bright = jnp.maximum(bright, wmin)      # max_k min9(d)
         mn_of_mx = jnp.minimum(mn_of_mx, wmax)  # min_k max9(d)
     dark = -mn_of_mx                            # == max_k min9(-d)
-    out_ref[:, :] = jnp.maximum(jnp.maximum(bright, dark), 0.0)
+    out_ref[...] = jnp.maximum(jnp.maximum(bright, dark), 0.0)
 
 
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def _fast_score_impl(img: Array) -> Array:
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def fast_score_pallas(img: Array, interpret: bool = False) -> Array:
+    """[H, W] float32 -> FAST score map (see module docstring)."""
     H, W = img.shape
-    Hp = _round_up(H, _TILE_H)
-    Wp = _round_up(W, 128)
-    img_p = jnp.pad(img, ((_HALO, Hp - H + _HALO), (0, Wp - W)))
-    n_tiles = Hp // _TILE_H
-
-    kernel = functools.partial(_fast_kernel, th=_TILE_H, w=Wp)
+    gh, gw = _cdiv(H, _TILE_H), _cdiv(W, _TILE_W)
+    img_p = jnp.pad(img.astype(jnp.float32),
+                    ((_HALO, gh * _TILE_H - H + _HALO),
+                     (_HALO, gw * _TILE_W - W + _HALO)))
     score = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[pl.BlockSpec((Hp + 2 * _HALO, Wp), lambda g: (0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((_TILE_H, Wp), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
+        _fast_kernel,
+        grid=(gh, gw),
+        in_specs=[pl.BlockSpec(img_p.shape, lambda i, j: (0, 0))],
+        out_specs=pl.BlockSpec((_TILE_H, _TILE_W), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((gh * _TILE_H, gw * _TILE_W),
+                                       jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="fast9_score",
     )(img_p)
     return score[:H, :W]
 
 
-@functools.lru_cache(maxsize=None)
-def _fast_score_batchable():
-    @jax.custom_batching.custom_vmap
-    def fast_score_p(img):
-        return _fast_score_impl(img)
-
-    @fast_score_p.def_vmap
-    def _rule(axis_size, in_batched, img):
-        del axis_size
-        assert in_batched[0]
-        return jax.lax.map(fast_score_p, img), True
-
-    return fast_score_p
-
-
-def fast_score_pallas(img: Array) -> Array:
-    """Drop-in for ops.fast.fast_score on TPU (identical scores away
-    from the 3-pixel y-border, which the detector's >=19-px border mask
-    removes)."""
-    return _fast_score_batchable()(img)
-
-
 def fast_score_fastest(img: Array) -> Array:
-    """Pallas kernel on TPU; XLA roll-ladder formulation otherwise."""
-    from modular_slam_tpu.ops.fast import fast_score
-
-    if _HAVE_PALLAS and jax.default_backend() == "tpu":
-        return fast_score_pallas(img)
-    return fast_score(img)
+    """The kernel when compiled for the GPU, the plain version for the
+    CPU; lowering for any other platform raises."""
+    return jax.lax.platform_dependent(img, cpu=fast_score,
+                                      cuda=fast_score_pallas)

@@ -1,31 +1,27 @@
-"""Fused Hamming 2-NN matcher as a Pallas TPU kernel.
+"""Fused Hamming 2-NN matcher as a Pallas kernel for the GPU (Triton route).
 
-The XLA formulation (ops/match.py) materializes the [Nq, L] distance
-matrix in HBM and re-reads it for the argmin / masked-second-min passes
-(~33 MB and several passes at the 512x16384 default).  This kernel
-streams landmark tiles HBM->VMEM once: each grid step does one int8
-MXU matmul (the ±1 dot-product Hamming trick, SURVEY.md §7 — no popcount
-on TPU) and reduces to a per-tile (best, argmin, second) triple in VMEM;
-the [G, Nq] per-tile triples are merged by a tiny XLA epilogue.  One HBM
-pass over the descriptors, two kernels total, instead of one matmul +
-several full-matrix reduction kernels.
+The plain formulation (ops/match.py) writes the [Nq, L] distance matrix
+to device memory (32 MB at the 512 x 16384 default) and reads it back
+for the argmin and the masked second-min.  This kernel never stores it:
 
-Batching: pallas_call's generic vmap batching rule prepends the vmap
-axis to the grid WITHOUT rewriting the kernel body, so the kernel's
-pl.program_id(0) would silently become the batch index under jax.vmap
-(parallel/dp.py vmaps the tracking step) — corrupted matches (advisor
-round-2 finding).  The per-(1,·) BlockSpec workaround is not lowerable
-on Mosaic (block dims must divide (8,128) or equal the array dims), so
-the kernel keeps resident [G, Nq] outputs + program_id and the batched
-case is handled at the JAX level instead: _match_tiles is wrapped in
-jax.custom_batching.custom_vmap whose rule lax.maps the kernel over the
-batch axis — each element still runs the full-speed kernel with its
-own (G,) grid, and program_id stays the tile index.
+- grid = (query blocks, landmark splits), blocks run in any order;
+- each program loops over its split's landmark tiles; each tile is one
+  int8 x int8 -> int32 `dot` on the tensor cores (the +-1 dot-product
+  Hamming trick: ham(a, b) = (nbits - a.b) / 2);
+- a running (best, argmin, second) triple per query lives in registers
+  and is written once per split;
+- a small XLA epilogue merges the splits into the global 2-NN.
 
-Semantics match ops/match.py::match_descriptors exactly (golden test in
-tests/test_match_pallas.py, incl. under vmap); `match_descriptors_fastest`
-dispatches to this kernel on TPU backends when shapes satisfy the tiling
-constraints and falls back to the XLA path otherwise.
+Shapes that do not fill the tiles are padded with invalid rows.  The
+kernel body reads no `program_id`: every offset comes from a BlockSpec
+index map, and the split-local argmin is made global in the epilogue.
+So `jax.vmap` (parallel/dp.py vmaps the tracker; loop verification
+vmaps the candidates) may prepend its own grid axis without changing
+what any block computes.
+
+Semantics equal ops/match.py::match_descriptors exactly, ties included
+(first index wins at every level); the plain version stays the CPU path
+and the reference (tests/test_match_pallas.py).
 """
 
 from __future__ import annotations
@@ -34,132 +30,118 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 from modular_slam_tpu.config import MatcherConfig
+from modular_slam_tpu.ops.match import match_descriptors
 from modular_slam_tpu.types import Matches
 
 Array = jnp.ndarray
 
 _BIG = 1e9
-
-try:  # pallas is TPU-only in some builds; import guarded
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
+_BLOCK_Q = 64        # queries per program
+_TILE_L = 128        # landmarks per inner-loop tile
+_TARGET_PROGRAMS = 128   # ~one program per SM (132 on an H100)
 
 
-def _pick_tile(L: int) -> int:
-    for t in (2048, 1024, 512, 256, 128):
-        if L % t == 0:
-            return t
-    return 0
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
 
 
-def _tile_kernel(q_ref, t_ref, tv_ref, best_ref, idx_ref, second_ref,
-                 *, tile_l: int):
-    """One landmark tile: distances on the MXU, top-2 min on the VPU.
-
-    q_ref:  [Nq, 256] int8 (±1)  — resident across grid steps
-    t_ref:  [TILE_L, 256] int8   — this tile's landmark descriptors
-    tv_ref: [1, TILE_L] int32    — validity mask row
-    outputs (per grid step g): best/idx/second rows [1, Nq]
-    """
-    nbits = q_ref.shape[1]
-    dot = jax.lax.dot_general(
-        q_ref[:], t_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )                                                   # [Nq, TILE_L]
-    d = (nbits - dot).astype(jnp.float32) * 0.5
-    d = jnp.where(tv_ref[0, :][None, :] > 0, d, _BIG)
-
-    best = jnp.min(d, axis=1)                           # [Nq]
-    arg = jnp.argmin(d, axis=1).astype(jnp.int32)       # [Nq]
-    cols = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
-    d2 = jnp.where(cols == arg[:, None], _BIG, d)
-    second = jnp.min(d2, axis=1)
-
-    # outputs are full [G, Nq] blocks resident across grid steps; each
-    # step fills its own row (TPU grid steps run sequentially).  Safe to
-    # use program_id here: batching never reaches this kernel (see
-    # module docstring / _match_tiles custom_vmap).
-    g = pl.program_id(0)
-    best_ref[pl.ds(g, 1), :] = best[None, :]
-    idx_ref[pl.ds(g, 1), :] = (arg + g * tile_l)[None, :]
-    second_ref[pl.ds(g, 1), :] = second[None, :]
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def _match_tiles_impl(q_pm1: Array, t_pm1: Array, t_valid: Array,
-                      tile_l: int, interpret: bool):
-    Nq, nbits = q_pm1.shape
-    L = t_pm1.shape[0]
-    G = L // tile_l
-    kernel = functools.partial(_tile_kernel, tile_l=tile_l)
-    return tuple(pl.pallas_call(
+def plan(n_query: int, n_train: int):
+    """-> (nq_pad, n_splits, tiles_per_split): the padded launch grid.
+
+    Splits the landmark axis until the grid has about one program per
+    SM; every split holds a power-of-two number of whole tiles."""
+    nq_blocks = _cdiv(n_query, _BLOCK_Q)
+    n_tiles = _cdiv(n_train, _TILE_L)
+    n_splits = min(_next_pow2(n_tiles),
+                   _next_pow2(max(1, _TARGET_PROGRAMS // nq_blocks)))
+    tiles_per_split = _next_pow2(_cdiv(n_tiles, n_splits))
+    return nq_blocks * _BLOCK_Q, n_splits, tiles_per_split
+
+
+def _split_kernel(q_ref, t_ref, tv_ref, best_ref, idx_ref, second_ref, *,
+                  n_tiles: int, tile_l: int):
+    """One (query block, landmark split): loop over the split's tiles.
+
+    q_ref  [BQ, nbits] int8 (+-1); t_ref [span, nbits] int8;
+    tv_ref [span] int32 validity; outputs [BQ] rows of this split."""
+    q = q_ref[...]
+    nbits = q.shape[1]
+    bq = q.shape[0]
+
+    def body(k, carry):
+        best, idx, second = carry
+        rows = pl.ds(k * tile_l, tile_l)
+        dot = jax.lax.dot_general(
+            q, t_ref[rows, :], (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32)            # [BQ, TILE_L]
+        d = (nbits - dot).astype(jnp.float32) * 0.5
+        d = jnp.where(tv_ref[rows][None, :] > 0, d, _BIG)
+        t_best = jnp.min(d, axis=1)
+        t_arg = jnp.argmin(d, axis=1).astype(jnp.int32)
+        cols = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
+        t_second = jnp.min(jnp.where(cols == t_arg[:, None], _BIG, d),
+                           axis=1)
+        # top-2 of the union {best, second} + {t_best, t_second}; strict
+        # '<' keeps the earlier (lower) index on ties, like jnp.argmin
+        second = jnp.minimum(jnp.minimum(second, t_second),
+                             jnp.maximum(best, t_best))
+        idx = jnp.where(t_best < best, t_arg + k * tile_l, idx)
+        best = jnp.minimum(best, t_best)
+        return best, idx, second
+
+    init = (jnp.full((bq,), jnp.inf, jnp.float32),
+            jnp.zeros((bq,), jnp.int32),
+            jnp.full((bq,), jnp.inf, jnp.float32))
+    best, idx, second = jax.lax.fori_loop(0, n_tiles, body, init)
+    best_ref[...] = best
+    idx_ref[...] = idx
+    second_ref[...] = second
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def split_top2(q_pm1: Array, t_pm1: Array, t_valid: Array,
+               interpret: bool = False):
+    """-> per-split (best, idx, second), each [n_splits, Nq]; idx global."""
+    nq, nbits = q_pm1.shape
+    n_train = t_pm1.shape[0]
+    nq_pad, n_splits, tps = plan(nq, n_train)
+    span = tps * _TILE_L
+    l_pad = n_splits * span
+    q = jnp.pad(q_pm1.astype(jnp.int8), ((0, nq_pad - nq), (0, 0)))
+    t = jnp.pad(t_pm1.astype(jnp.int8), ((0, l_pad - n_train), (0, 0)))
+    tv = jnp.pad(t_valid.astype(jnp.int32), (0, l_pad - n_train))
+
+    kernel = functools.partial(_split_kernel, n_tiles=tps, tile_l=_TILE_L)
+    row = pl.BlockSpec((None, _BLOCK_Q), lambda i, j: (j, i))
+    best, idx, second = pl.pallas_call(
         kernel,
-        interpret=interpret,
-        grid=(G,),
+        grid=(nq_pad // _BLOCK_Q, n_splits),
         in_specs=[
-            pl.BlockSpec((Nq, nbits), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_l, nbits), lambda g: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_l), lambda g: (0, g),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((_BLOCK_Q, nbits), lambda i, j: (i, 0)),
+            pl.BlockSpec((span, nbits), lambda i, j: (j, 0)),
+            pl.BlockSpec((span,), lambda i, j: (j,)),
         ],
-        out_specs=[
-            pl.BlockSpec((G, Nq), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((G, Nq), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((G, Nq), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
+        out_specs=[row, row, row],
         out_shape=[
-            jax.ShapeDtypeStruct((G, Nq), jnp.float32),
-            jax.ShapeDtypeStruct((G, Nq), jnp.int32),
-            jax.ShapeDtypeStruct((G, Nq), jnp.float32),
+            jax.ShapeDtypeStruct((n_splits, nq_pad), jnp.float32),
+            jax.ShapeDtypeStruct((n_splits, nq_pad), jnp.int32),
+            jax.ShapeDtypeStruct((n_splits, nq_pad), jnp.float32),
         ],
-    )(q_pm1, t_pm1, t_valid.astype(jnp.int32)[None, :]))
-
-
-@functools.lru_cache(maxsize=None)
-def _match_tiles_batchable(tile_l: int, interpret: bool):
-    """custom_vmap wrapper (per static config): vmap lax.maps the kernel
-    over the batch axis instead of letting the pallas batching rule
-    prepend a grid axis the kernel body doesn't know about."""
-
-    @jax.custom_batching.custom_vmap
-    def match_tiles(q_pm1, t_pm1, t_valid):
-        return _match_tiles_impl(q_pm1, t_pm1, t_valid, tile_l, interpret)
-
-    @match_tiles.def_vmap
-    def _vmap_rule(axis_size, in_batched, q_pm1, t_pm1, t_valid):
-        qb, tb, vb = in_batched
-
-        def one(args):
-            q, t, v = args
-            return match_tiles(q, t, v)
-
-        def bcast(x, b):
-            return x if b else jax.tree_util.tree_map(
-                lambda a: jnp.broadcast_to(a, (axis_size,) + a.shape), x)
-
-        outs = jax.lax.map(one, (bcast(q_pm1, qb), bcast(t_pm1, tb),
-                                 bcast(t_valid, vb)))
-        return tuple(outs), (True, True, True)
-
-    return match_tiles
-
-
-@functools.partial(jax.jit, static_argnames=("tile_l", "interpret"))
-def _match_tiles(q_pm1: Array, t_pm1: Array, t_valid: Array, tile_l: int,
-                 interpret: bool = False):
-    """-> per-tile (best [G,Nq], idx [G,Nq], second [G,Nq])."""
-    return _match_tiles_batchable(tile_l, interpret)(q_pm1, t_pm1, t_valid)
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=3),
+        interpret=interpret,
+        name="hamming_2nn_split",
+    )(q, t, tv)
+    offsets = (jnp.arange(n_splits, dtype=jnp.int32) * span)[:, None]
+    return best[:, :nq], (idx + offsets)[:, :nq], second[:, :nq]
 
 
 def match_descriptors_pallas(
@@ -168,25 +150,20 @@ def match_descriptors_pallas(
     train_pm1: Array,
     train_valid: Array,
     cfg: MatcherConfig,
+    interpret: bool = False,
 ) -> Matches:
-    """Drop-in for ops.match.match_descriptors on TPU (same semantics).
-
-    Off-TPU backends run the kernel in Pallas interpret mode (slow, for
-    semantics testing only) — use match_descriptors_fastest for the
-    automatic dispatch."""
-    tile_l = _pick_tile(train_pm1.shape[0])
-    best_t, idx_t, second_t = _match_tiles(
-        query_pm1, train_pm1, train_valid, tile_l,
-        interpret=jax.default_backend() != "tpu")
-
-    # merge per-tile top-2 -> global top-2 (tiny [G, Nq] epilogue)
-    g_star = jnp.argmin(best_t, axis=0)                 # [Nq]
-    qcols = jnp.arange(best_t.shape[1])
-    best = best_t[g_star, qcols]
-    best_idx = idx_t[g_star, qcols]
-    rows = jnp.arange(best_t.shape[0])[:, None]
-    others = jnp.where(rows == g_star[None, :], _BIG, best_t)
-    second = jnp.minimum(second_t[g_star, qcols], jnp.min(others, axis=0))
+    """The fused kernel; same result as ops.match.match_descriptors."""
+    best_s, idx_s, second_s = split_top2(query_pm1, train_pm1, train_valid,
+                                         interpret=interpret)
+    # merge per-split top-2 -> global top-2 (tiny [S, Nq] epilogue);
+    # argmin takes the first split on ties, i.e. the lowest index
+    s_star = jnp.argmin(best_s, axis=0)
+    qcols = jnp.arange(best_s.shape[1])
+    best = best_s[s_star, qcols]
+    best_idx = idx_s[s_star, qcols]
+    rows = jnp.arange(best_s.shape[0])[:, None]
+    others = jnp.where(rows == s_star[None, :], _BIG, best_s)
+    second = jnp.minimum(second_s[s_star, qcols], jnp.min(others, axis=0))
 
     ok = (
         query_valid
@@ -198,12 +175,6 @@ def match_descriptors_pallas(
                    valid=ok)
 
 
-def pallas_match_supported(n_query: int, n_train: int, n_bits: int) -> bool:
-    """Tiling constraints: int8 blocks need (32, 128)-aligned shapes."""
-    return (_HAVE_PALLAS and n_bits % 128 == 0 and n_query % 32 == 0
-            and _pick_tile(n_train) > 0)
-
-
 def match_descriptors_fastest(
     query_pm1: Array,
     query_valid: Array,
@@ -211,14 +182,10 @@ def match_descriptors_fastest(
     train_valid: Array,
     cfg: MatcherConfig,
 ) -> Matches:
-    """Pallas kernel on TPU when shapes allow; XLA formulation otherwise."""
-    from modular_slam_tpu.ops.match import match_descriptors
-
-    if (jax.default_backend() == "tpu"
-            and pallas_match_supported(query_pm1.shape[0],
-                                       train_pm1.shape[0],
-                                       query_pm1.shape[1])):
-        return match_descriptors_pallas(
-            query_pm1, query_valid, train_pm1, train_valid, cfg)
-    return match_descriptors(
-        query_pm1, query_valid, train_pm1, train_valid, cfg)
+    """The kernel when compiled for the GPU, the plain version for the
+    CPU; lowering for any other platform raises."""
+    args = (query_pm1, query_valid, train_pm1, train_valid)
+    return jax.lax.platform_dependent(
+        *args,
+        cpu=lambda *a: match_descriptors(*a, cfg),
+        cuda=lambda *a: match_descriptors_pallas(*a, cfg))

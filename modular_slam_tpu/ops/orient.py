@@ -2,8 +2,8 @@
 
 Reference: orb_impl::ic_angle over a 31px circular patch
 (distributed_cv_feature.cpp:543-570, u_max_ rows :522-541), exact atan2
-instead of the reference's polynomial approximation (:465-501) — the VPU
-has fast transcendentals, no need to approximate.
+instead of the reference's polynomial approximation (:465-501) — the
+device has fast transcendentals, no need to approximate.
 """
 
 from __future__ import annotations
@@ -84,8 +84,8 @@ def ic_angle_from_patches(patches: Array,
     mask = _mask(radius)
     coords = jnp.arange(-radius, radius + 1, dtype=patches.dtype)
     w = crop * mask
-    # elementwise multiply + reduce on the VPU (f32-exact; no MXU
-    # precision concerns)
+    # elementwise multiply + reduce (f32-exact; no matmul precision
+    # concerns)
     m10 = jnp.sum(w * coords[None, None, :], axis=(1, 2))
     m01 = jnp.sum(w * coords[None, :, None], axis=(1, 2))
     return jnp.arctan2(m01, m10)
@@ -94,15 +94,12 @@ def ic_angle_from_patches(patches: Array,
 def moment_maps(img: Array, radius: int = IC_RADIUS) -> Array:
     """Dense IC moment maps, channels-FIRST [2, H, W] = (m10, m01).
 
-    Channels-first matters on TPU: a trailing length-2 axis becomes the
-    lane (minor) dimension and is padded to 128 lanes — a 64x memory and
-    relayout blowup that measured ~2 ms/frame in the detector's
-    atlas-stack + gather path.
+    Channels-first keeps the long spatial axes minor; a trailing
+    length-2 axis would become the minor dimension of every layout.
 
     Exact circular-patch moments via row-strip prefix sums instead of a
-    31x31 dense convolution: a single-channel 961-tap conv utilizes ~1/128
-    of the MXU and measured ~61 ms/frame on a v5e; this formulation is a
-    handful of cumsums + rolled adds on the VPU (<1 ms).
+    31x31 dense convolution (a single-channel 961-tap conv): this
+    formulation is a handful of cumsums + rolled adds.
 
     Per row offset dy the circle spans x in [-u(dy), u(dy)] (u_max rows,
     distributed_cv_feature.cpp:522-541).  With P = prefix(I) and

@@ -4,14 +4,14 @@ Reference semantics: cv::solvePnPRansac with 100 iterations, 5.0 px
 reprojection threshold, warm start from the current pose, inlier bitset
 output (cv_ransac_pnp.cpp:14-85).
 
-TPU-native redesign (SURVEY.md §7 step 4): instead of a sequential
+Accelerator redesign (SURVEY.md §7 step 4): instead of a sequential
 hypothesis loop with early exit, evaluate a *fixed batch* of minimal
 hypotheses in parallel and argmax the inlier count:
 
 - RGB-D gives every matched observation a 3D camera-frame point (depth
   back-projection), so a minimal hypothesis is a 3-point rigid alignment
   (Horn triad construction — no SVD needed for 3 points), much
-  TPU-friendlier than P3P root-solving;
+  friendlier to batched device math than P3P root-solving;
 - hypothesis 0 is the warm-start pose (covers the reference's
   use-initial-guess path);
 - scoring = full reprojection-error inlier count per hypothesis

@@ -6,20 +6,20 @@ targets distributed Schur-complement BA across >= 2 hosts; this module is
 the process-level entry for that: initialize the JAX distributed runtime
 from environment variables (or explicit arguments), then build the
 ("seq", "obs") mesh over the GLOBAL device set so the same shard_map BA
-code (parallel/sharded_ba.py) runs with psums riding ICI within a slice
-and DCN across hosts.
+code (parallel/sharded_ba.py) runs with psums over the devices' own
+interconnect within a host and the network across hosts.
 
 Environment contract (standard cluster-launcher shapes):
     SLAM_COORDINATOR   host:port of process 0 (required when >1 process)
     SLAM_NUM_PROCESSES total process count           (default 1)
     SLAM_PROCESS_ID    this process's rank           (default 0)
-JAX's own auto-detection (SLURM / GKE / Cloud TPU metadata) is used when
+JAX's own auto-detection (e.g. SLURM) is used when
 these are unset — `jax.distributed.initialize()` with no arguments.
 
 CPU testing: pass `cpu_gloo=True` (or set SLAM_CPU_GLOO=1) before any
 backend use to select gloo cross-process CPU collectives — this is how
 the 2-process smoke test (tests/test_multihost.py) exercises real
-process-spanning meshes without TPU hardware.
+process-spanning meshes without accelerators.
 """
 
 from __future__ import annotations

@@ -2,15 +2,15 @@
 
 BASELINE config 5's data axis: independent sequences (fr1+fr2+fr3) each
 carry their own map arena and tracking state; the batched engine step is
-the single-sequence `slam_step` vmapped over a leading sequence axis and
-sharded over the mesh — XLA partitions the batch with zero cross-sequence
-communication (tracking is embarrassingly parallel; the coupling happens
-in the sharded BA, parallel/sharded_ba.py).
+the single-sequence `slam_step` vmapped over a leading sequence axis, with
+each device running its own block of sequences under shard_map — zero
+cross-sequence communication (tracking is embarrassingly parallel; the
+coupling happens in the sharded BA, parallel/sharded_ba.py).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -23,72 +23,46 @@ from modular_slam_tpu.map.arena import empty_arena
 from modular_slam_tpu.ops.detector import detect
 
 
+def _per_device(cfg: SlamConfig, mesh: Mesh, axis: str) -> Callable:
+    """The single-sequence engine step, vmapped over each device's block
+    of the sequence axis under shard_map: every device tracks its own
+    sequences and nothing crosses devices (nor does XLA ever have to
+    partition the Pallas kernels inside the step)."""
+    cam = camera_from_config(cfg.camera)
+
+    def one(arena, state, gray, depth, time, key):
+        feats = detect(gray, depth, cfg.detector)
+        return track_frame(arena, state, feats, cam, cfg, time, key)
+
+    return jax.shard_map(jax.vmap(one), mesh=mesh, in_specs=P(axis),
+                         out_specs=P(axis), check_vma=False)
+
+
 def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh,
                          axis: str = "seq") -> Callable:
     """Jitted batched step: (arenas, states, grays, depths, times, keys)
     -> (arenas, states, results), everything with a leading [B] sequence
     axis sharded over `axis`."""
-    cam = camera_from_config(cfg.camera)
-
-    def one(arena, state, gray, depth, time, key):
-        feats = detect(gray, depth, cfg.detector)
-        return track_frame(arena, state, feats, cam, cfg, time, key)
-
-    batched = jax.vmap(one)
-
-    def constrain(tree):
-        return jax.tree.map(
-            lambda x: jax.lax.with_sharding_constraint(
-                x, NamedSharding(mesh, P(axis, *([None] * (x.ndim - 1))))),
-            tree,
-        )
-
-    @jax.jit
-    def step(arenas, states, grays, depths, times, keys):
-        # pin the per-sequence axis to the mesh so XLA never gathers a
-        # whole batch onto one device, whatever the inputs' placement
-        out = batched(arenas, states, constrain(grays), constrain(depths),
-                      times, keys)
-        return constrain(out)
-
-    return step
+    return jax.jit(_per_device(cfg, mesh, axis))
 
 
 def make_batch_slam_scan(cfg: SlamConfig, mesh: Mesh,
                          axis: str = "seq") -> Callable:
-    """Chunked batched step: lax.scan of the vmapped engine step over a
-    leading chunk axis — C frames of B sequences in ONE dispatch.
-
-    fn(arenas, states, grays [C,B,H,W], depths [C,B,H,W], times [C,B],
-    keys [C,B,2]) -> (arenas, states, results [C,B]).  The per-sequence
-    axis is pinned to the mesh `axis` so the batch never gathers onto one
-    device; the scan removes the per-frame host dispatch that made the
-    multi-sequence path structurally slower than the single-sequence scan.
+    """Chunked batched step: lax.scan of the per-device batched engine
+    step over a leading chunk axis — C frames of B sequences in ONE
+    dispatch.  fn(arenas, states, grays [C,B,H,W], depths [C,B,H,W],
+    times [C,B], keys [C,B,2]) -> (arenas, states, results [C,B]).  The
+    scan removes the per-frame host dispatch that made the
+    multi-sequence path structurally slower than the single-sequence
+    scan.
     """
-    cam = camera_from_config(cfg.camera)
-
-    def one(arena, state, gray, depth, time, key):
-        feats = detect(gray, depth, cfg.detector)
-        return track_frame(arena, state, feats, cam, cfg, time, key)
-
-    batched = jax.vmap(one)
-
-    def constrain(tree):
-        return jax.tree.map(
-            lambda x: jax.lax.with_sharding_constraint(
-                x, NamedSharding(mesh, P(axis, *([None] * (x.ndim - 1))))),
-            tree,
-        )
+    step = _per_device(cfg, mesh, axis)
 
     @jax.jit
     def scan_fn(arenas, states, grays, depths, times, keys):
         def body(carry, frame):
-            arenas, states = carry
-            g, d, t, k = frame
-            a, s, r = batched(arenas, states, constrain(g), constrain(d),
-                              t, k)
-            return (constrain(a), constrain(s)), r
-
+            a, s, r = step(*carry, *frame)
+            return (a, s), r
         (arenas, states), results = jax.lax.scan(
             body, (arenas, states), (grays, depths, times, keys))
         return arenas, states, results

@@ -36,7 +36,8 @@ The landmark side communicates through two channels:
 
 Per-matvec per-device communication is ~ 4*halo*(L/nk)*3 floats plus
 the far-set floor, DECREASING with device count — see
-`halo_comms_table` for the analytic numbers recorded in MULTICHIP.
+`halo_comms_table` for the analytic numbers (printed by the dry run,
+__graft_entry__.dryrun_multichip).
 (The table counts BOTH directions of the window allreduce; the old
 design's 0.203 MB figure counted only its two all_gathers and omitted
 its psum/psum_scatter reductions, so the halo crossover at nk ≈ 6 in
@@ -94,8 +95,8 @@ Array = jnp.ndarray
 
 def halo_comms_table(K: int, L: int, O: int, halo: int = 1,
                      far_cap: int = 1024, device_counts=(1, 2, 4, 8)):
-    """Analytic per-device bytes for one CG matvec (the MULTICHIP
-    scaling record).  kf-side: zero.  lm-side: one window allreduce of
+    """Analytic per-device bytes for one CG matvec, from shapes alone.
+    kf-side: zero.  lm-side: one window allreduce of
     [*, 3] (reduce 2*halo slabs + broadcast 2*halo slabs of Lb rows)
     plus two far-set psums."""
     out = {}

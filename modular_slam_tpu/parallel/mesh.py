@@ -1,15 +1,16 @@
 """Device-mesh helpers.
 
 The reference has no distributed execution at all (SURVEY.md §2.5) — this
-layer is the TPU-native addition: a named mesh with
+layer is this rebuild's addition: a named mesh with
 - axis "seq": data parallelism over independent sequences (BASELINE
   config 5), and
 - axis "obs": sharding of the observation list for the distributed
   Schur-complement BA reduction (configs 4-5).
 
-On a multi-host slice, call `jax.distributed.initialize()` before
-`make_mesh` (standard JAX bootstrap); ICI carries the psums inside a
-slice and DCN across hosts — XLA picks the collectives from the mesh.
+On several hosts, call `jax.distributed.initialize()` before
+`make_mesh` (standard JAX bootstrap).  The meshes are plain reshapes of
+the device list: the GPUs of one host reach each other all to all, so
+the mesh follows the algorithm alone and XLA picks the collectives.
 """
 
 from __future__ import annotations

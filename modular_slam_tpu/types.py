@@ -66,7 +66,7 @@ class Descriptors(NamedTuple):
     """BRIEF-256 descriptors.
 
     packed:   [N, 8] uint32 — bit-packed, for storage/hashing
-    unpacked: [N, 256] int8 — ±1, for MXU Hamming matching
+    unpacked: [N, 256] int8 — ±1, for matmul Hamming matching
     """
 
     packed: Array

@@ -1,9 +1,8 @@
-"""Masked index extraction tuned for TPU.
+"""Masked index extraction without a scatter.
 
-`jnp.nonzero(mask, size=cap, fill_value=N)` lowers through a scatter
-that costs ~1.5 ms at 131072 rows on a v5e; the same contract via
-`lax.top_k` over strictly-decreasing keys costs ~0.5 ms (measured,
-tools/ba_bisect.py methodology).  Exact for N < 2^24 (f32 keys)."""
+`jnp.nonzero(mask, size=cap, fill_value=N)` lowers through a scatter;
+the same contract via `lax.top_k` over strictly-decreasing keys needs
+none.  Exact for N < 2^24 (f32 keys)."""
 
 from __future__ import annotations
 

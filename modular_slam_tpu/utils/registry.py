@@ -2,7 +2,7 @@
 
 The reference loads components from shared libraries via
 boost::dll::import_alias (plugin_loader.hpp:19-25) and assembles them
-with a fluent builder (slam_builder.hpp:93-177).  The TPU rebuild keeps
+with a fluent builder (slam_builder.hpp:93-177).  This rebuild keeps
 the same extension contract — named factories per component kind — as a
 plain registry: register a factory under ("detector", "my_impl") and any
 pipeline config can reference it by name.  Third-party packages can
@@ -71,8 +71,7 @@ def load_entry_point_plugins() -> int:
 def _register_builtins() -> None:
     from modular_slam_tpu.ops.detector import detect
     from modular_slam_tpu.ops.match import match_descriptors
-    from modular_slam_tpu.ops.match_pallas import (
-        match_descriptors_fastest, match_descriptors_pallas)
+    from modular_slam_tpu.ops.match_pallas import match_descriptors_fastest
     from modular_slam_tpu.ops.pnp import ransac_pnp
     from modular_slam_tpu.io.tum import TumRgbdDataset
 
@@ -82,7 +81,7 @@ def _register_builtins() -> None:
 
     @register("matcher", "hamming_2nn")
     def _matcher(cfg):
-        # Pallas fused kernel on TPU, XLA formulation elsewhere
+        # fused kernel on the GPU, plain formulation on the CPU
         return lambda q, qv, t, tv: match_descriptors_fastest(
             q, qv, t, tv, cfg.matcher)
 
@@ -90,11 +89,6 @@ def _register_builtins() -> None:
     def _matcher_xla(cfg):
         return lambda q, qv, t, tv: match_descriptors(q, qv, t, tv,
                                                       cfg.matcher)
-
-    @register("matcher", "hamming_2nn_pallas")
-    def _matcher_pallas(cfg):
-        return lambda q, qv, t, tv: match_descriptors_pallas(
-            q, qv, t, tv, cfg.matcher)
 
     @register("pnp", "ransac_3p")
     def _pnp(cfg):

@@ -33,7 +33,7 @@ import time as _time
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="TPU-native SLAM viewer")
+    ap = argparse.ArgumentParser(description="RGB-D SLAM viewer")
     ap.add_argument("--dataset", required=True, help="TUM-format sequence dir")
     ap.add_argument("--serve", type=int, default=None, metavar="PORT",
                     help="serve the live web viewer on this port")

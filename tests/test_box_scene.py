@@ -138,3 +138,22 @@ def test_degraded_world_tracks_and_stays_accurate():
     # looser than the clean-world 0.02 bar: the render is degraded and a
     # dynamic object is present, but drift must stay centimetric
     assert ate < 0.06, ate
+
+
+def test_synthetic_blurs_match_opencv():
+    """The generators blur with scipy.ndimage (reflect-101 = "mirror"),
+    which must reproduce OpenCV's GaussianBlur / filter2D so frames do
+    not depend on whether OpenCV is installed."""
+    import cv2
+    from scipy import ndimage
+
+    from modular_slam_tpu.eval.synthetic import _gaussian_blur3
+
+    img = np.random.default_rng(0).uniform(0, 255, (61, 83)).astype(
+        np.float32)
+    np.testing.assert_allclose(_gaussian_blur3(img, 0.8),
+                               cv2.GaussianBlur(img, (3, 3), 0.8), atol=1e-4)
+    kern = np.zeros((5, 5), np.float32)
+    kern[1, 0] = kern[2, 2] = kern[3, 4] = 1.0 / 3.0
+    np.testing.assert_allclose(ndimage.correlate(img, kern, mode="mirror"),
+                               cv2.filter2D(img, -1, kern), atol=1e-4)

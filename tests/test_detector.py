@@ -1,5 +1,7 @@
 """End-to-end detector tests: descriptor invariances, real-image behavior."""
 
+import os
+
 import numpy as np
 import cv2
 import jax
@@ -100,18 +102,24 @@ def test_descriptor_rotation_invariance():
 
 
 def test_detect_on_reference_frames():
-    ds = TumRgbdDataset("/root/reference/data")
+    """The bundled 320x240 sample frame (data/sample): 48 cells of 40 px,
+    the same 8 x 6 grid the 80-px cells make on a 640x480 frame."""
+    ds = TumRgbdDataset(os.path.join(os.path.dirname(__file__), "..",
+                                     "data", "sample"))
     rgb, depth, _ = ds.load(0)
+    assert rgb.shape == (240, 320, 3)
     gray = rgb.astype(np.float32) @ np.array([0.299, 0.587, 0.114], np.float32)
     cfg = DetectorConfig()
     feats = detect(jnp.asarray(gray), jnp.asarray(depth), cfg)
     kps = feats.keypoints
     nv = int(kps.valid.sum())
-    assert nv > 200, f"only {nv} keypoints on a real frame"
-    # spatial spread: keypoints should cover multiple image regions
+    assert nv > 150, f"only {nv} keypoints on a sample frame"
+    # spatial spread: keypoints should cover most image regions
     uv = np.array(kps.uv[np.array(kps.valid)])
-    occupied = {(int(u // 80), int(v // 80)) for u, v in uv}
-    assert len(occupied) > 20
+    occupied = {(int(u // 40), int(v // 40)) for u, v in uv}
+    assert len(occupied) > 36
+    # every keypoint lands on valid depth (the sample has no holes)
+    assert int((np.array(kps.depth)[np.array(kps.valid)] > 0).sum()) == nv
     # levels populated beyond level 0
     lv = np.array(kps.level[np.array(kps.valid)])
     assert (lv > 0).sum() > 10
@@ -138,7 +146,7 @@ def test_moment_maps_match_patch_oracle():
 
 
 def test_brief_matmul_matches_gather_oracle():
-    """brief_matmul (int8 MXU sampling, 32 angle bins) is bit-exact
+    """brief_matmul (int8 matmul sampling, 32 angle bins) is bit-exact
     against the gather formulation on the ROUNDED atlas at bin-center
     angles, and close to the continuous-rotation bits elsewhere."""
     from modular_slam_tpu.ops.brief import (N_ANGLE_BINS, brief_from_atlas,

@@ -1,5 +1,7 @@
 """End-to-end odometry on synthetic sequences with exact ground truth, and
-on the bundled reference 2-frame sample (BASELINE config 1)."""
+on the bundled 16-frame sample (BASELINE config 1)."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,6 +12,8 @@ from modular_slam_tpu.engine import SlamSystem, SlamResult
 from modular_slam_tpu.eval.synthetic import PlaneSceneGenerator
 from modular_slam_tpu.eval.ate import ate_rmse
 from modular_slam_tpu.io import TumRgbdDataset
+
+SAMPLE = os.path.join(os.path.dirname(__file__), "..", "data", "sample")
 
 
 def _small_cfg():
@@ -85,16 +89,20 @@ def test_keyframes_created_on_motion():
 
 
 def test_bundled_reference_sequence():
-    """BASELINE config 1: the reference's own 2-frame mini-sequence."""
-    ds = TumRgbdDataset("/root/reference/data")
-    sys_ = SlamSystem(SlamConfig(), enable_backend=False)
-    results = [sys_.process(rgb, depth, ts) for rgb, depth, ts in ds]
-    assert results[0] == SlamResult.SUCCESS
-    assert results[1] == SlamResult.SUCCESS
-    # consecutive near-identical frames: pose stays near identity
+    """BASELINE config 1 on the bundled sample (data/sample: 320x240,
+    its own intrinsics and groundtruth.txt): the first two frames track,
+    and the second pose lands near ground truth.  The sample moves
+    0.47 m between these frames, so 3 cm is about 6 % of the step."""
+    ds = TumRgbdDataset(SAMPLE)
+    sys_ = SlamSystem(SlamConfig().replace(camera=ds.camera),
+                      enable_backend=False)
+    results = [sys_.process(*ds.load(i)) for i in range(2)]
+    assert results == [SlamResult.SUCCESS, SlamResult.SUCCESS]
     _, pose = sys_.trajectory[-1]
-    assert float(jnp.linalg.norm(pose.t)) < 0.05
-    assert sys_.stats()["last_n_inliers"] > 100
+    gt_t = ds.groundtruth[1, 1:4]
+    assert np.linalg.norm(gt_t) > 0.4
+    assert float(np.linalg.norm(np.asarray(pose.t) - gt_t)) < 0.03
+    assert sys_.stats()["last_n_inliers"] >= 20
 
 
 def test_tracking_lost_on_garbage_frame():

@@ -2,6 +2,7 @@
 verification, pose-graph optimization, relocalization."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -319,3 +320,36 @@ def test_query_covis_overlap_excludes_connected():
     live = np.array(slots)[np.array(scores) > -1].tolist()
     assert 1 not in live       # 30 shared > 15 -> excluded
     assert 2 in live           # 5 shared <= 15 -> kept
+
+
+def test_failed_tier_compile_surfaces(monkeypatch):
+    """A global-BA tier whose compile fails is not retried or deferred
+    forever: the next request for it raises, and so does the blocking
+    retry at flush."""
+    from modular_slam_tpu.backend import ba
+    from modular_slam_tpu.frontend.tracker import initial_state
+    from modular_slam_tpu.loop.pipeline import LoopPipeline
+    from modular_slam_tpu.map.arena import empty_arena
+
+    cfg = SlamConfig(map=MapConfig(max_keyframes=16, max_landmarks=512,
+                                   max_observations=2048))
+
+    def broken(cfg, tier):
+        raise ValueError("compile refused")
+
+    monkeypatch.setattr(ba, "make_global_ba_compact", broken)
+    arena, state = empty_arena(cfg.map), initial_state()
+    lp = LoopPipeline(cfg)
+
+    lp._gba_pending = True
+    assert lp.maybe_run_pending_gba(arena, state, 0) == (arena, state)
+    for t in list(lp._gba_threads.values()):
+        t.join()
+    with pytest.raises(RuntimeError, match="failed to compile") as e:
+        lp.maybe_run_pending_gba(arena, state, 0)
+    assert isinstance(e.value.__cause__, ValueError)
+
+    lp2 = LoopPipeline(cfg)
+    lp2._gba_pending = True
+    with pytest.raises(RuntimeError, match="failed to compile"):
+        lp2.maybe_run_pending_gba(arena, state, 0, wait=True)

@@ -9,7 +9,7 @@ noticed until the advisor read them.  These tests pin the contract:
 2. every ``*._sequence(...)`` tuple-unpack call site under ``tools/``
    and in ``bench.py`` unpacks exactly that many values.
 
-AST-based so the check costs milliseconds and needs no TPU/OpenCV run.
+AST-based so the check costs milliseconds and needs no device/OpenCV run.
 """
 
 import ast

@@ -270,3 +270,60 @@ def test_checkpoint_restores_vocab_on_mismatch(tmp_path):
     load_checkpoint(path, s2)
     np.testing.assert_array_equal(np.asarray(s2._loop._vocab),
                                   np.asarray(s1._loop._vocab))
+
+
+def test_compile_cache_honours_env_var(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: JAX reads it itself, so no
+    directory is set in code."""
+    import jax
+
+    from modular_slam_tpu.utils import compile_cache_dir, setup_compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache_dir("gpu") is None
+    assert compile_cache_dir("cpu") is None
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_entry_size_bytes",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_enable_xla_caches")
+    saved = {n: getattr(jax.config, n) for n in names}
+    try:
+        setup_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == saved[names[0]]
+    finally:
+        for n, v in saved.items():
+            jax.config.update(n, v)
+
+
+def test_compile_cache_fixed_path_otherwise(monkeypatch):
+    from modular_slam_tpu.utils import compile_cache_dir
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                        ".jax_cache"))
+    assert compile_cache_dir("gpu") == os.path.join(root, "gpu")
+    cpu = compile_cache_dir("cpu")
+    assert os.path.dirname(cpu) == root
+    assert os.path.basename(cpu).startswith("cpu-")
+    assert compile_cache_dir("gpu") == compile_cache_dir("gpu")
+
+
+def test_device_busy_ns_on_recorded_h100_trace(tmp_path):
+    """The trace reduction on a recorded profile: three calls of a small
+    jitted matmul+tanh+reduce on an NVIDIA H100 (JAX 0.9.0), four
+    kernels each on one compute stream."""
+    import shutil
+
+    from modular_slam_tpu.utils.profiling import device_busy_ns
+
+    src = os.path.join(os.path.dirname(__file__), "data",
+                       "h100_matmul_trace.xplane.pb")
+    run = tmp_path / "plugins" / "profile" / "run"
+    run.mkdir(parents=True)
+    shutil.copy(src, run / "host.xplane.pb")
+    busy, per_name = device_busy_ns(str(tmp_path))
+    assert busy == 43712
+    assert per_name["gemm_fusion_dot_general_1"] == 27488
+    assert sum(per_name.values()) >= busy   # union never exceeds the sum
+    with pytest.raises(ValueError, match="no plane"):
+        device_busy_ns(str(tmp_path), plane_prefix="/device:GPU:7")

@@ -1,9 +1,9 @@
 """Pin the host-CPU proxy baseline (VERDICT r3 next #7).
 
 The headline `vs_baseline` ratio divides by the OpenCV/numpy proxy of
-the reference pipeline, which is host-CPU-bound and drifted 26-28 %
-between rounds on the same nominal workload (BENCH_r02 48.2 f/s vs
-BENCH_r03 35.8 f/s tracking), making cross-round ratios incomparable.
+the reference pipeline, which is host-CPU-bound and drifts between
+runs on the same nominal workload, making cross-round ratios
+incomparable.
 This tool measures the proxy as a median of N independent runs with
 fixed seeds/scenes and stores the result in a checked-in
 `BASELINE_PROXY.json`; bench.py then reports `vs_baseline` against the
